@@ -1,4 +1,4 @@
-// Native host-side table math and bit packing for the TPU Huffman framework.
+// Native host-side table math and bit packing for the huffman_jax framework.
 //
 // Role parity with the reference's host C++ components:
 //  - histogram: OpenMP thread-local 256-bin arrays + reduce, the design of
@@ -13,7 +13,7 @@
 //  - bit packer: MSB-first u32 stream, same semantics as
 //    core/npref.py::encode_bits (oracle-speed host encode).
 //
-// Exposed as a plain C ABI consumed via ctypes (huffman_tpu/native.py).
+// Exposed as a plain C ABI consumed via ctypes (huffman_jax/native.py).
 
 #include <cstdint>
 #include <cstring>

@@ -10,7 +10,7 @@
 //     ref_seq encode <in> <out>   # reference HuffmanSequential::encode
 //     ref_seq decode <in> <out>   # reference HuffmanSequential::decode
 //
-// Compiled on demand by huffman_tpu/io/refbin.py (skipped when the
+// Compiled on demand by huffman_jax/io/refbin.py (skipped when the
 // reference tree or g++ is absent).  No reference code lives in this repo.
 #include <cstdio>
 #include <cstdlib>

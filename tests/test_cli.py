@@ -2,7 +2,7 @@
 
 import pytest
 
-from huffman_tpu.cli import main
+from huffman_jax.cli import main
 
 
 @pytest.fixture
@@ -47,7 +47,7 @@ def test_cli_decode_garbage(tmp_path, capsys):
 
 
 def test_distributed_noop_single_host():
-    from huffman_tpu.utils.distributed import init_multihost, is_multihost
+    from huffman_jax.utils.distributed import init_multihost, is_multihost
 
     init_multihost()  # must be a harmless no-op without a coordinator
     assert not is_multihost()

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from huffman_tpu.models import GapArrayCodec
-from huffman_tpu.io import write_container, read_container, container_size
-from huffman_tpu.utils import generate_redundant, generate_binomial
+from huffman_jax.models import GapArrayCodec
+from huffman_jax.io import write_container, read_container, container_size
+from huffman_jax.utils import generate_redundant, generate_binomial
 
 
 @pytest.mark.parametrize("redundancy", [0.1, 0.5, 0.9])
@@ -80,42 +80,36 @@ def test_compression_beats_raw_and_overhead_is_small():
     assert len(blob) < data.size
 
 
-def test_gap_codec_pallas_method():
-    from huffman_tpu.models import GapArrayCodec
-    from huffman_tpu.utils import generate_redundant
+@pytest.mark.parametrize("method", ["lut", "canonical", "twolevel"])
+def test_gap_codec_methods(method):
+    from huffman_jax.models import GapArrayCodec
+    from huffman_jax.utils import generate_redundant
 
     data = generate_redundant(300_000, 0.5, seed=30)
-    codec = GapArrayCodec.fit(data, block_bytes=1 << 17, method="pallas")
+    codec = GapArrayCodec.fit(data, block_bytes=1 << 17, method=method)
     comp = codec.encode(data)
     out = codec.decode(comp)
     assert np.array_equal(out, data)
 
 
-def test_gap_codec_method_default_is_backend_aware():
-    """VERDICT r3 item 5: out of the box the codec must take the Pallas
-    path on TPU and the portable LUT path elsewhere (tests run on CPU)."""
-    import jax
-
-    from huffman_tpu.models.gap_codec import default_gap_method
-
-    expected = "pallas" if jax.default_backend() == "tpu" else "lut"
-    assert default_gap_method() == expected
+def test_gap_codec_method_default_is_lut():
+    # one XLA decode step everywhere; the backend does not pick it
     codec = GapArrayCodec.fit(np.arange(64, dtype=np.uint8))
-    assert codec.method == expected
+    assert codec.method == "lut"
 
 
 def test_gap_codec_device_resident_roundtrip():
-    """encode_device -> decode_device keeps payload on device end to end
-    (VERDICT r3 item 7); stage_host must equal the host encode exactly."""
+    """encode_device -> decode_device keeps payload on device end to end;
+    stage_host must equal the host encode exactly."""
     data = generate_redundant(1 << 18, 0.5, seed=33)
-    codec = GapArrayCodec.fit(data, block_bytes=1 << 16, method="pallas")
+    codec = GapArrayCodec.fit(data, block_bytes=1 << 16)
     blocks = data.reshape(4, 1 << 16)
     dcomp = codec.encode_device(blocks)
     out = np.asarray(codec.decode_device(dcomp))
     np.testing.assert_array_equal(out.reshape(-1), data)
 
     # staged host form == the host encode path, block by block
-    from huffman_tpu.models.gap_codec import Compressed
+    from huffman_jax.models.gap_codec import Compressed
 
     comp = Compressed(
         table=codec.table, seg_bits=codec.seg_bits, original_size=data.size,
@@ -131,19 +125,15 @@ def test_gap_codec_device_resident_roundtrip():
         np.testing.assert_array_equal(a, b)
 
 
-def test_gap_codec_pallas_batched_matches_single():
-    """decode_blocks_pallas (one dispatch per group) must equal the
-    per-block decode_block_pallas bit-for-bit on heterogeneous content,
-    where per-block segment-count spread puts zero-count padding segments
-    at every block seam of the flattened segment stream."""
+def test_gap_codec_heterogeneous_blocks_match_single():
+    """One vmapped group decode must equal per-block decodes bit for bit on
+    heterogeneous content, where the per-block segment counts differ and
+    zero-count padding segments sit at every block's tail."""
     import jax.numpy as jnp
 
-    from huffman_tpu.models import GapArrayCodec
-    from huffman_tpu.ops.pallas.decode_kernel import (
-        decode_block_pallas,
-        decode_blocks_pallas,
-    )
-    from huffman_tpu.utils import generate_redundant
+    from huffman_jax.models import GapArrayCodec
+    from huffman_jax.ops.decode import decode_block
+    from huffman_jax.utils import generate_redundant
 
     bb = 1 << 15
     rng = np.random.default_rng(31)
@@ -153,68 +143,30 @@ def test_gap_codec_pallas_batched_matches_single():
         generate_redundant(bb, 0.7, seed=3),          # mid entropy
         generate_redundant(bb, 0.3, seed=2),          # long codes
     ])
-    codec = GapArrayCodec.fit(data, block_bytes=bb, method="pallas")
+    codec = GapArrayCodec.fit(data, block_bytes=bb)
     comp = codec.encode(data)
     assert comp.n_blocks == 4
-    spread = {c.size for c in comp.block_gaps}
-    assert len(spread) > 1  # real per-block segment-count variation
-
-    # stage the group exactly like GapArrayCodec._decode_group
-    max_w = max(w.size for w in comp.block_words)
-    max_s = max(g.size for g in comp.block_gaps)
-    g = comp.n_blocks
-    words = np.zeros((g, max_w + 1), np.uint32)
-    gaps = np.zeros((g, max_s), np.int32)
-    counts = np.zeros((g, max_s), np.int32)
-    for j in range(g):
-        words[j, : comp.block_words[j].size] = comp.block_words[j]
-        gaps[j, : comp.block_gaps[j].size] = comp.block_gaps[j]
-        counts[j, : comp.block_counts[j].size] = comp.block_counts[j]
-    max_count = -(-int(counts.max()) // 8) * 8
-
-    batched = np.asarray(decode_blocks_pallas(
-        jnp.asarray(words), gaps, counts, codec.dec,
-        symtab=codec.table.symtab, spec=codec.spec,
-        seg_bits=codec.seg_bits, max_count=max_count, out_size=bb,
-        interpret=True,
-    ))
-    np.testing.assert_array_equal(batched.reshape(-1), data)
-    for j in range(g):
-        single = np.asarray(decode_block_pallas(
-            jnp.asarray(words[j]), gaps[j], counts[j], codec.dec,
-            symtab=codec.table.symtab, spec=codec.spec,
-            seg_bits=codec.seg_bits, n_segs=max_s, max_count=max_count,
-            out_size=bb, interpret=True,
-        ))
-        np.testing.assert_array_equal(batched[j], single)
-
-    # end-to-end: the codec's own group path decodes the same bytes
+    assert len({c.size for c in comp.block_gaps}) > 1
     np.testing.assert_array_equal(codec.decode(comp), data)
-
-    # sub-group chunking (the HBM footprint cap) must not change outputs
-    from huffman_tpu.ops.pallas import decode_kernel as dk
-
-    orig = dk.GROUP_OUT_BYTES
-    try:
-        dk.GROUP_OUT_BYTES = 2 * bb  # forces 2 sub-groups of 2 blocks
-        chunked = np.asarray(decode_blocks_pallas(
-            jnp.asarray(words), gaps, counts, codec.dec,
-            symtab=codec.table.symtab, spec=codec.spec,
-            seg_bits=codec.seg_bits, max_count=max_count, out_size=bb,
-            interpret=True,
-        ))
-    finally:
-        dk.GROUP_OUT_BYTES = orig
-    np.testing.assert_array_equal(chunked, batched)
+    for j in range(comp.n_blocks):
+        words = np.concatenate([comp.block_words[j], np.zeros(1, np.uint32)])
+        counts = comp.block_counts[j]
+        single = decode_block(
+            jnp.asarray(words), jnp.asarray(comp.block_gaps[j].astype(np.int32)),
+            jnp.asarray(counts), codec.dec, spec=codec.spec,
+            seg_bits=codec.seg_bits, max_count=int(counts.max()),
+            out_size=bb, method="lut",
+        )
+        np.testing.assert_array_equal(
+            np.asarray(single), data[j * bb : (j + 1) * bb]
+        )
 
 
-def test_gap_codec_pallas_unaligned_block_bytes():
-    """Block sizes that are not a multiple of the 4096 B compaction tile
-    must fall back to per-block dispatches (a mid-tile seam would widen
-    the global certified band by the whole per-block segment spread) and
-    still round-trip."""
-    from huffman_tpu.models import GapArrayCodec
-    from huffman_tpu.utils import generate_redundant
+def test_gap_codec_unaligned_block_bytes():
+    """Block sizes that are not a multiple of 4096 B, with a ragged last
+    block, still round-trip."""
+    from huffman_jax.models import GapArrayCodec
+    from huffman_jax.utils import generate_redundant
 
     rng = np.random.default_rng(32)
     data = np.concatenate([
@@ -222,18 +174,17 @@ def test_gap_codec_pallas_unaligned_block_bytes():
         rng.integers(0, 256, 100_000).astype(np.uint8),
         generate_redundant(30_000, 0.5, seed=8),
     ])
-    codec = GapArrayCodec.fit(data, block_bytes=100_000, method="pallas")
+    codec = GapArrayCodec.fit(data, block_bytes=100_000)
     out = codec.decode(codec.encode(data))
     np.testing.assert_array_equal(out, data)
 
 
-def test_gap_codec_pallas_degenerate_falls_back():
-    # sub-2-bit codes push per-segment counts past the Pallas row budget;
-    # the XLA path must take over (with a valid method, not "pallas")
-    from huffman_tpu.models import GapArrayCodec
+def test_gap_codec_degenerate_short_codes():
+    # sub-2-bit mean code length: ~1000 codewords per 1024-bit segment
+    from huffman_jax.models import GapArrayCodec
 
     data = np.zeros(40_000, np.uint8)
     data[::97] = 7
-    codec = GapArrayCodec.fit(data, method="pallas")
+    codec = GapArrayCodec.fit(data)
     out = codec.decode(codec.encode(data))
     assert np.array_equal(out, data)

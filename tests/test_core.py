@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from huffman_tpu.core import (
+from huffman_jax.core import (
     package_merge_lengths,
     huffman_lengths_unbounded,
     kraft_sum,
@@ -11,8 +11,8 @@ from huffman_tpu.core import (
     build_flat_lut,
     build_two_level_table,
 )
-from huffman_tpu.core import npref
-from huffman_tpu.utils import generate_redundant, generate_binomial
+from huffman_jax.core import npref
+from huffman_jax.utils import generate_redundant, generate_binomial
 
 
 def entropy_bits(freqs):
@@ -159,7 +159,7 @@ def test_two_level_table_matches_flat_lut():
 def test_dec_spec_boundary_matches_two_level_builder():
     # dec_spec computes the L1 boundary without building L2 arrays; pin the
     # cheap form to the full builder across table shapes
-    from huffman_tpu.ops.tables import _two_level_prefix, dec_spec
+    from huffman_jax.ops.tables import _two_level_prefix, dec_spec
 
     cases = [
         generate_binomial(50_000, seed=13),

@@ -1,32 +1,34 @@
-"""Interleaved-stream (ILS) codec tests: oracle equivalence, kernel parity
-(interpret mode), codec round-trips, container round-trips.
+"""Interleaved-stream (ILS) codec tests: oracle equivalence of the device
+path (the plain XLA versions on this CPU backend), codec round-trips,
+container round-trips.
 
 The reference has no test framework (SURVEY §4); its pattern is the
 self-verifying round-trip in every main().  Here the pure-NumPy oracle
-(`core/ils_ref.py`) is additionally checked bit-for-bit against the Pallas
-kernels so encode and decode are pinned down independently.
+(`core/ils_ref.py`) is additionally checked bit-for-bit against the device
+encode and decode so both are pinned down independently; the Triton
+kernels are checked against both in `test_ils_kernels.py`.
 """
 
 import numpy as np
 import pytest
 
-from huffman_tpu.core import canonical_code_table, package_merge_lengths, npref
-from huffman_tpu.core.ils_ref import (
+from huffman_jax.core import canonical_code_table, package_merge_lengths, npref
+from huffman_jax.core.ils_ref import (
     ILS_LANES,
     ils_decode_np,
     ils_encode_np,
     ils_simulate_schedule,
     ils_stream_symbols,
 )
-from huffman_tpu.io import (
+from huffman_jax.io import (
     container_kind,
     read_ils_container,
     write_ils_container,
 )
-from huffman_tpu.models import IlsCodec
-from huffman_tpu.ops.ils import ils_decode_device, ils_encode_device
-from huffman_tpu.ops.pallas.ils_kernels import ils_dec_tabs, ils_enc_tabs
-from huffman_tpu.utils import generate_redundant
+from huffman_jax.models import IlsCodec
+from huffman_jax.ops.ils import ils_decode_device, ils_encode_device
+from huffman_jax.ops.ils_xla import ils_dec_tabs, ils_enc_tabs
+from huffman_jax.utils import generate_redundant
 
 
 def _fit(data, max_len=16):
@@ -71,47 +73,18 @@ def test_kernels_match_oracle(r, rot):
 
     payload_np, params_np = ils_encode_np(data, table, k, rot=rot)
     sec = ils_encode_device(
-        data, table, enc, k=k, avg_bits=avg, rot=rot, interpret=True
+        data, table, enc, k=k, avg_bits=avg, rot=rot
     )
     assert sec.params.snum == params_np.snum
     assert np.array_equal(sec.params.boffs, params_np.boffs)
     assert sec.params.w_band == params_np.w_band
     assert np.array_equal(sec.params.w_tiles, params_np.w_tiles)
+    assert sec.params.w_cap == params_np.w_cap
     assert sec.params.rot == rot
     assert np.array_equal(sec.payload, payload_np)
 
-    out = ils_decode_device(sec, table, dec, interpret=True)
+    out = ils_decode_device(sec, table, dec)
     assert np.array_equal(out, data)
-
-
-@pytest.mark.parametrize("lazy", [False, True])
-@pytest.mark.parametrize("nt,n_tiles", [(1, 2), (2, 2), (2, 3)])
-def test_decode_kernel_variants(lazy, nt, n_tiles):
-    # the eager 128-bit-register path and the nt=2 interleaved path are
-    # tuning fallbacks; keep them bit-exact alongside the default.
-    # (2, 3) exercises the phantom-slot padding (pad = 1).
-    from huffman_tpu.ops.pallas.ils_kernels import ils_decode
-    from huffman_tpu.ops.ils import _as_tiles_i32, ils_encode_to_device
-    import jax.numpy as jnp
-
-    k = 12
-    n = n_tiles * k * ILS_LANES
-    data = generate_redundant(n, 0.5, seed=11)
-    table = _fit(data)
-    enc, dec = ils_enc_tabs(table), ils_dec_tabs(table)
-    avg = float(table.lengths.astype(np.int64)[data].mean())
-    data_i32 = jnp.asarray(_as_tiles_i32(data, k))
-    rows, starts, p = ils_encode_to_device(
-        data_i32, enc, k=k, avg_bits=avg, interpret=True
-    )
-    params = jnp.asarray(np.array([p.snum, 0], np.int32))
-    out = ils_decode(
-        rows, starts, params, jnp.asarray(p.boffs), dec, k=p.k,
-        w_cap=p.w_cap, w_band=p.w_band, max_len=table.max_len_present,
-        min_len=table.min_len, n_tiles=p.n_tiles, interpret=True,
-        nt=nt, lazy=lazy,
-    )
-    assert np.array_equal(np.asarray(out), np.asarray(data_i32))
 
 
 @pytest.mark.parametrize("r", [0.1, 0.5, 0.9])
@@ -119,9 +92,8 @@ def test_decode_chain_spec_matches_dense(r):
     # the grouped compare chain (one weighted compare per distinct decode
     # limit, `core/canonical.py::chain_spec`) must be bit-identical to the
     # dense per-level chain at every redundancy
-    from huffman_tpu.core.canonical import chain_spec
-    from huffman_tpu.ops.ils import _as_tiles_i32, ils_encode_to_device
-    from huffman_tpu.ops.pallas.ils_kernels import ils_decode
+    from huffman_jax.core.canonical import chain_spec
+    from huffman_jax.ops.ils import as_u32_rows, ils_decode, ils_encode_to_device
     import jax.numpy as jnp
 
     k = 12
@@ -135,339 +107,29 @@ def test_decode_chain_spec_matches_dense(r):
         table.max_len_present - table.min_len, 0
     )
     avg = float(table.lengths.astype(np.int64)[data].mean())
-    data_i32 = jnp.asarray(_as_tiles_i32(data, k))
-    rows, starts, p = ils_encode_to_device(
-        data_i32, enc, k=k, avg_bits=avg, interpret=True
+    data_u32 = jnp.asarray(as_u32_rows(data))
+    rows, starts, p = ils_encode_to_device(data_u32, enc, k=k, avg_bits=avg)
+    dense = tuple(
+        (l, 1) for l in range(table.min_len, table.max_len_present)
     )
-    params = jnp.asarray(np.array([p.snum, 0], np.int32))
-    kw = dict(
-        k=p.k, w_cap=p.w_cap, w_band=p.w_band,
-        max_len=table.max_len_present, min_len=table.min_len,
-        n_tiles=p.n_tiles, interpret=True,
-    )
-    out_dense = ils_decode(rows, starts, params, jnp.asarray(p.boffs), dec,
-                           **kw)
-    out_grouped = ils_decode(rows, starts, params, jnp.asarray(p.boffs), dec,
-                             chain=spec, **kw)
-    assert np.array_equal(np.asarray(out_dense), np.asarray(data_i32))
-    assert np.array_equal(np.asarray(out_grouped), np.asarray(data_i32))
+    for chain in (dense, spec):
+        out = ils_decode(rows, starts, dec, k=p.k, min_len=table.min_len,
+                         chain=chain, rot=p.rot)
+        assert np.array_equal(np.asarray(out), np.asarray(data_u32))
 
 
 @pytest.mark.parametrize("n_tiles", [1, 3])
 def test_decode_odd_tile_counts(n_tiles):
-    # the interleaved (nt=2) decode kernel pads odd tile counts with a
-    # phantom slot re-decoding the last tile; 1 tile takes the nt=1 path
+    # one tile and an odd tile count through the whole device path
     k = 12
     n = n_tiles * k * ILS_LANES
     data = generate_redundant(n, 0.5, seed=9)
     table = _fit(data)
     enc, dec = ils_enc_tabs(table), ils_dec_tabs(table)
     avg = float(table.lengths.astype(np.int64)[data].mean())
-    sec = ils_encode_device(data, table, enc, k=k, avg_bits=avg, interpret=True)
-    out = ils_decode_device(sec, table, dec, interpret=True)
+    sec = ils_encode_device(data, table, enc, k=k, avg_bits=avg)
+    out = ils_decode_device(sec, table, dec)
     assert np.array_equal(out, data)
-
-
-def test_fused_pack_violation_falls_back():
-    # one stream of all-rare (max-length) codes drifts far outside the
-    # fused path's estimated emission band: the kernel must flag it and
-    # ils_encode_to_device must fall back to the certified two-pass path
-    import jax.numpy as jnp
-
-    from huffman_tpu.core.ils_ref import ils_schedule_numer
-    from huffman_tpu.ops.ils import _as_tiles_i32
-    from huffman_tpu.ops.pallas.ils_kernels import ils_pack_certify
-
-    k = 48  # with e_band=2 the skewed stream escapes within a few bodies
-    n = k * ILS_LANES
-    data = np.zeros(n, np.uint8)
-    rare = np.arange(1, 256, dtype=np.uint8)
-    data[::129] = rare[np.arange((n + 128) // 129) % 255]
-    u32_idx = np.arange(5, n // 4, ILS_LANES)  # stream 5: all rare bytes
-    byte_idx = (u32_idx[:, None] * 4 + np.arange(4)[None]).reshape(-1)
-    data[byte_idx] = rare[np.arange(byte_idx.size) % 255]
-    table = _fit(data)
-    enc = ils_enc_tabs(table)
-    avg = float(table.lengths.astype(np.int64)[data].mean())
-    ml = int(table.max_len_present)
-    stride_rows = max(2 * (-(-k * ml // 64)), 4)
-    snum = ils_schedule_numer(avg)
-    params = jnp.asarray(np.array([snum, 0], np.int32))
-    data_i32 = jnp.asarray(_as_tiles_i32(data, k))
-    _, _, _, _, viol = ils_pack_certify(
-        data_i32, params, enc, k=k, stride_rows=stride_rows, interpret=True,
-        e_band=2,
-    )
-    assert int(jnp.max(viol)) == 1  # the skewed stream leaves the band
-
-
-def test_fused_pack_anchor_escalation(monkeypatch):
-    # heterogeneous content drifts the emission schedule away from mu in
-    # COMMON MODE (all lanes together): the fast "mu" window anchor must
-    # flag a violation, the "laggard" retry must absorb it (cross-lane
-    # spread stays tiny), and the library must return the laggard-anchored
-    # fused container — never falling to two-pass — bit-exact with the
-    # oracle payload
-    import jax.numpy as jnp
-
-    from huffman_tpu.core.ils_ref import ils_schedule_numer
-    from huffman_tpu.ops.ils import _as_tiles_i32
-    import huffman_tpu.ops.ils as ils_ops
-    from huffman_tpu.ops.pallas.ils_kernels import ils_pack_certify
-
-    k = 256
-    n = k * ILS_LANES
-    # first half zeros (short codes), second half uniform (long codes):
-    # snum is fit on the mix, so e_ptr falls far behind mu through the
-    # zeros half — identical in every lane
-    data = np.zeros(n, np.uint8)
-    data[n // 2:] = generate_redundant(n // 2, 0.0, seed=17)
-    table = _fit(data)
-    enc, dec = ils_enc_tabs(table), ils_dec_tabs(table)
-    avg = float(table.lengths.astype(np.int64)[data].mean())
-    ml = int(table.max_len_present)
-    stride_rows = max(2 * (-(-k * ml // 64)), 4)
-    snum = ils_schedule_numer(avg)
-    params = jnp.asarray(np.array([snum, 0], np.int32))
-    data_i32 = jnp.asarray(_as_tiles_i32(data, k))
-    kw = dict(k=k, stride_rows=stride_rows, e_band=8, interpret=True)
-    viol_mu = ils_pack_certify(data_i32, params, enc, anchor="mu", **kw)[4]
-    viol_lag = ils_pack_certify(
-        data_i32, params, enc, anchor="laggard", **kw
-    )[4]
-    assert int(jnp.max(viol_mu)) == 1
-    assert int(jnp.max(viol_lag)) == 0
-    # the library path must escalate mu -> laggard and stay one-pass
-    monkeypatch.setattr(ils_ops, "FUSED_E_BAND", 8)
-    monkeypatch.setattr(ils_ops, "fused_e_band", lambda k: 8)
-    monkeypatch.setattr(
-        ils_ops, "ils_lengths_pass",
-        lambda *a, **kws: pytest.fail("two-pass path must not run"),
-    )
-    payload_np, params_np = ils_encode_np(data, table, k)
-    rows, _, p = ils_ops.ils_encode_to_device(
-        data_i32, enc, k=k, avg_bits=avg, max_len=ml, interpret=True
-    )
-    payload = (
-        np.asarray(rows[: p.total_rows])
-        .reshape(p.total_rows, ILS_LANES)
-        .view(np.uint32)
-    )
-    assert np.array_equal(payload, payload_np)
-    sec = ils_ops.IlsSection(params=p, payload=payload)
-    out = ils_decode_device(sec, table, dec, interpret=True)
-    assert np.array_equal(out, data)
-
-
-def test_fused_pack_wider_e_band_same_output():
-    # bench.py --e-band A/Bs the emission-band width; a wider band must
-    # change only the kernel's work shape, never the certified outputs
-    import jax.numpy as jnp
-
-    from huffman_tpu.core.ils_ref import ils_schedule_numer
-    from huffman_tpu.ops.ils import _as_tiles_i32
-    from huffman_tpu.ops.pallas.ils_kernels import ils_pack_certify
-
-    k = 64
-    data = generate_redundant(2 * k * ILS_LANES, 0.5, seed=31)
-    table = _fit(data)
-    enc = ils_enc_tabs(table)
-    avg = float(table.lengths.astype(np.int64)[data].mean())
-    ml = int(table.max_len_present)
-    stride_rows = max(2 * (-(-k * ml // 64)), 4)
-    snum = ils_schedule_numer(avg)
-    params = jnp.asarray(np.array([snum, 0], np.int32))
-    data_i32 = jnp.asarray(_as_tiles_i32(data, k))
-    ref = ils_pack_certify(
-        data_i32, params, enc, k=k, stride_rows=stride_rows, interpret=True,
-    )
-    got = ils_pack_certify(
-        data_i32, params, enc, k=k, stride_rows=stride_rows, interpret=True,
-        e_band=64,
-    )
-    for name, a, b in zip(("pay", "bits", "dn", "dx", "viol"), ref, got):
-        assert np.array_equal(np.asarray(a), np.asarray(b)), name
-
-
-@pytest.mark.parametrize("lazy", [False, True])
-def test_probe_decode_matches_oracle(lazy):
-    # max_len=8 tables: the 256-entry lane-probe symbol step must be
-    # bit-exact with the canonical compare chain (both decode paths)
-    from huffman_tpu.ops.ils import _as_tiles_i32, ils_encode_to_device
-    from huffman_tpu.ops.pallas.ils_kernels import ils_decode
-    import jax.numpy as jnp
-
-    k = 12
-    n = 2 * k * ILS_LANES
-    data = generate_redundant(n, 0.9, seed=17)
-    table = _fit(data, max_len=8)
-    assert table.max_len_present <= 8
-    enc, dec = ils_enc_tabs(table), ils_dec_tabs(table)
-    avg = float(table.lengths.astype(np.int64)[data].mean())
-    data_i32 = jnp.asarray(_as_tiles_i32(data, k))
-    rows, starts, p = ils_encode_to_device(
-        data_i32, enc, k=k, avg_bits=avg, rot=True, interpret=True
-    )
-    params = jnp.asarray(np.array([p.snum, 0], np.int32))
-    out = ils_decode(
-        rows, starts, params, jnp.asarray(p.boffs), dec, k=p.k,
-        w_cap=p.w_cap, w_band=p.w_band, max_len=table.max_len_present,
-        min_len=table.min_len, n_tiles=p.n_tiles, rot=True, probe=True,
-        lazy=lazy, interpret=True,
-    )
-    assert np.array_equal(np.asarray(out), np.asarray(data_i32))
-    # the codec path keeps the measured-faster canonical step (docs/PERF.md
-    # §2: the probe is bit-exact but 8x slower — its permute lands on the
-    # serial window chain) while the probe stays a correct opt-in
-    sec = ils_encode_device(
-        data, table, enc, k=k, avg_bits=avg, rot=True, interpret=True
-    )
-    assert np.array_equal(ils_decode_device(sec, table, dec, interpret=True), data)
-    assert np.array_equal(
-        ils_decode_device(sec, table, dec, probe=True, interpret=True), data
-    )
-
-
-@pytest.mark.parametrize("r", [0.5, 0.9])
-def test_hybrid_probe_decode_matches_oracle(r):
-    # long-code tables: the probe resolves codes <= 8 bits, the masked
-    # canonical path (levels >= 9 only) carries the rest — bit-exact
-    from huffman_tpu.ops.ils import _as_tiles_i32, ils_encode_to_device
-    from huffman_tpu.ops.pallas.ils_kernels import ils_decode
-    import jax.numpy as jnp
-
-    k = 12
-    n = 2 * k * ILS_LANES
-    data = generate_redundant(n, r, seed=18)
-    table = _fit(data)  # max_len 16
-    assert table.max_len_present > 8
-    enc, dec = ils_enc_tabs(table), ils_dec_tabs(table)
-    avg = float(table.lengths.astype(np.int64)[data].mean())
-    data_i32 = jnp.asarray(_as_tiles_i32(data, k))
-    rows, starts, p = ils_encode_to_device(
-        data_i32, enc, k=k, avg_bits=avg, rot=True, interpret=True
-    )
-    params = jnp.asarray(np.array([p.snum, 0], np.int32))
-    out = ils_decode(
-        rows, starts, params, jnp.asarray(p.boffs), dec, k=p.k,
-        w_cap=p.w_cap, w_band=p.w_band, max_len=table.max_len_present,
-        min_len=table.min_len, n_tiles=p.n_tiles, rot=True, probe=True,
-        interpret=True,
-    )
-    assert np.array_equal(np.asarray(out), np.asarray(data_i32))
-
-
-@pytest.mark.parametrize("anchor", ["mu", "laggard"])
-def test_stream_pack_matches_fused(anchor):
-    # the streaming fused pack (sliding emission window, per-chunk DMA
-    # flushes) must reproduce the monolithic fused pack's outputs exactly
-    # at BOTH window anchors: same strided payload, bits, refill
-    # envelopes, and violation flags
-    import jax.numpy as jnp
-
-    from huffman_tpu.core.ils_ref import ils_schedule_numer
-    from huffman_tpu.ops.ils import _as_tiles_i32
-    from huffman_tpu.ops.pallas.ils_kernels import (
-        ils_pack_certify,
-        ils_pack_certify_stream,
-        ils_stream_span_rows,
-    )
-
-    k = 256
-    n = 2 * k * ILS_LANES
-    data = generate_redundant(n, 0.5, seed=21)
-    table = _fit(data)
-    enc = ils_enc_tabs(table)
-    avg = float(table.lengths.astype(np.int64)[data].mean())
-    stride_rows = 128  # worst-case stride for max_len=16
-    assert ils_stream_span_rows(k, stride_rows, chunk_cap=8) is not None
-    snum = ils_schedule_numer(avg)
-    params = jnp.asarray(np.array([snum, 0], np.int32))
-    data_i32 = jnp.asarray(_as_tiles_i32(data, k))
-    ref = ils_pack_certify(
-        data_i32, params, enc, k=k, stride_rows=stride_rows, interpret=True,
-        anchor=anchor,
-    )
-    got = ils_pack_certify_stream(
-        data_i32, params, enc, k=k, stride_rows=stride_rows, interpret=True,
-        chunk_cap=8, anchor=anchor,
-    )
-    for name, a, b in zip(
-        ("bits", "dec_min", "dec_max", "viol"), ref[1:], got[1:]
-    ):
-        assert np.array_equal(np.asarray(a), np.asarray(b)), name
-    # payload contract: tile rows [0, w_tile) exact (all ils_compact keeps);
-    # rows beyond the live coverage are unspecified in the streaming layout
-    pay_ref, pay_got = np.asarray(ref[0]), np.asarray(got[0])
-    bits = np.asarray(ref[1])
-    for t in range(2):
-        w_t = 2 * (-(-int(bits[t].max()) // 64))
-        assert np.array_equal(
-            pay_ref[t * stride_rows : t * stride_rows + w_t],
-            pay_got[t * stride_rows : t * stride_rows + w_t],
-        ), f"tile {t}"
-    # trailing slack stays zeroed (read by ils_compact's last-tile over-read)
-    assert not pay_got[2 * stride_rows :].any()
-
-
-def test_encode_stream_roundtrip(monkeypatch):
-    # drive ils_encode_to_device down the STREAMING branch (stride over
-    # budget, span under it) and require the oracle-identical container
-    import jax.numpy as jnp
-
-    import huffman_tpu.ops.ils as ils_ops
-
-    k = 256
-    n = 3 * k * ILS_LANES
-    data = generate_redundant(n, 0.5, seed=22)
-    table = _fit(data)
-    enc, dec = ils_enc_tabs(table), ils_dec_tabs(table)
-    avg = float(table.lengths.astype(np.int64)[data].mean())
-    # stride for max_len=16 is 128 rows; span at chunk_cap=8 is 92
-    monkeypatch.setattr(ils_ops, "FUSED_STRIDE_BUDGET", 100)
-    monkeypatch.setattr(ils_ops, "PREFER_STREAM_PACK", True)
-    monkeypatch.setattr(ils_ops, "_STREAM_CHUNK_CAP", 8)
-    monkeypatch.setattr(
-        ils_ops, "ils_pack_certify",
-        lambda *a, **kw: pytest.fail("monolithic fused pack must not run"),
-    )
-    monkeypatch.setattr(
-        ils_ops, "ils_pack",
-        lambda *a, **kw: pytest.fail("two-pass pack must not run"),
-    )
-    payload_np, params_np = ils_encode_np(data, table, k)
-    data_i32 = jnp.asarray(ils_ops._as_tiles_i32(data, k))
-    rows, _, p = ils_ops.ils_encode_to_device(
-        data_i32, enc, k=k, avg_bits=avg, max_len=16, interpret=True
-    )
-    payload = (
-        np.asarray(rows[: p.total_rows])
-        .reshape(p.total_rows, ILS_LANES)
-        .view(np.uint32)
-    )
-    assert np.array_equal(payload, payload_np)
-    assert p.w_band == params_np.w_band
-    sec = ils_ops.IlsSection(params=p, payload=payload)
-    out = ils_decode_device(sec, table, dec, interpret=True)
-    assert np.array_equal(out, data)
-
-
-def test_encode_two_pass_fallback(monkeypatch):
-    # force the fused-path gate off: the certified two-pass encode must
-    # still produce oracle-identical containers
-    import huffman_tpu.ops.ils as ils_ops
-
-    monkeypatch.setattr(ils_ops, "FUSED_STRIDE_BUDGET", 0)
-    k = 12
-    n = 2 * k * ILS_LANES
-    data = generate_redundant(n, 0.5, seed=4)
-    table = _fit(data)
-    enc, dec = ils_enc_tabs(table), ils_dec_tabs(table)
-    avg = float(table.lengths.astype(np.int64)[data].mean())
-    payload_np, params_np = ils_encode_np(data, table, k)
-    sec = ils_encode_device(data, table, enc, k=k, avg_bits=avg, interpret=True)
-    assert np.array_equal(sec.payload, payload_np)
-    assert np.array_equal(ils_decode_device(sec, table, dec, interpret=True), data)
 
 
 def test_schedule_simulation_envelope():
@@ -484,19 +146,19 @@ def test_schedule_simulation_envelope():
     assert int((enc_max - enc_min).max()) <= 4
 
 
-@pytest.mark.parametrize("n_extra", [0, 1, 4095, 4096, 70000])
+@pytest.mark.parametrize("n_extra", [-1, 0, 1, 4095, 4096, 70000])
 def test_codec_roundtrip_sizes(n_extra):
     k = 8
     n = k * ILS_LANES + n_extra
     data = generate_redundant(n, 0.5, seed=5)
-    codec = IlsCodec.fit(data, k=k, interpret=True)
+    codec = IlsCodec.fit(data, k=k)
     comp = codec.encode(data)
     out = codec.decode(comp)
     assert np.array_equal(out, data)
 
 
 def test_codec_empty():
-    codec = IlsCodec.fit(np.zeros(0, np.uint8), k=8, interpret=True)
+    codec = IlsCodec.fit(np.zeros(0, np.uint8), k=8)
     comp = codec.encode(np.zeros(0, np.uint8))
     assert codec.decode(comp).size == 0
 
@@ -504,7 +166,7 @@ def test_codec_empty():
 def test_container_roundtrip():
     k = 8
     data = generate_redundant(k * ILS_LANES + 777, 0.6, seed=6)
-    codec = IlsCodec.fit(data, k=k, interpret=True)
+    codec = IlsCodec.fit(data, k=k)
     comp = codec.encode(data)
     blob = write_ils_container(comp)
     assert container_kind(blob) == "ils1"
@@ -526,7 +188,7 @@ def test_container_rejects_garbage():
 def test_container_detects_corruption():
     k = 8
     data = generate_redundant(k * ILS_LANES, 0.5, seed=9)
-    codec = IlsCodec.fit(data, k=k, interpret=True)
+    codec = IlsCodec.fit(data, k=k)
     blob = bytearray(write_ils_container(codec.encode(data)))
     blob[-5] ^= 0x40  # flip a payload bit
     with pytest.raises(ValueError, match="checksum"):
@@ -541,7 +203,7 @@ def test_container_version_follows_rotation():
     k = 8
     data = generate_redundant(k * ILS_LANES, 0.5, seed=13)
     for rotate, version in ((False, 3), (True, 4)):
-        codec = IlsCodec.fit(data, k=k, interpret=True, rotate=rotate)
+        codec = IlsCodec.fit(data, k=k, rotate=rotate)
         comp = codec.encode(data)
         blob = write_ils_container(comp)
         assert blob[4] == version
@@ -553,7 +215,7 @@ def test_container_version_follows_rotation():
 def test_container_rejects_unknown_section_flags():
     k = 8
     data = generate_redundant(k * ILS_LANES, 0.5, seed=13)
-    codec = IlsCodec.fit(data, k=k, interpret=True, rotate=False)
+    codec = IlsCodec.fit(data, k=k, rotate=False)
     blob = bytearray(write_ils_container(codec.encode(data)))
     # flags i32 sits 8 bytes into the first section struct
     off = blob.index(b"ILS1") + 21 + 2 * codec.table.num_symbols + 8
@@ -588,12 +250,12 @@ def test_rotation_decorrelates_periodic_content():
     enc, dec = ils_enc_tabs(table), ils_dec_tabs(table)
     avg = float(table.lengths.astype(np.int64)[data].mean())
     sec = ils_encode_device(
-        data, table, enc, k=k, avg_bits=avg, rot=True, interpret=True
+        data, table, enc, k=k, avg_bits=avg, rot=True
     )
     payload_np, params_np = ils_encode_np(data, table, k, rot=True)
     assert np.array_equal(sec.payload, payload_np)
     assert np.array_equal(
-        ils_decode_device(sec, table, dec, interpret=True), data
+        ils_decode_device(sec, table, dec), data
     )
 
 
@@ -609,11 +271,11 @@ def test_auto_rotation_follows_content():
     periodic = np.tile(period, n // 4096)
     generic = generate_redundant(n, 0.5, seed=3)
     for data, want_rot in ((periodic, True), (generic, False)):
-        codec = IlsCodec.fit(data, k=k, interpret=True)  # rotate="auto"
+        codec = IlsCodec.fit(data, k=k)  # rotate="auto"
         comp = codec.encode(data)
         assert [s.params.rot for s in comp.sections] == [want_rot]
         # the auto decision matches what an explicit encode certifies
-        forced = IlsCodec.fit(data, k=k, interpret=True, rotate=not want_rot)
+        forced = IlsCodec.fit(data, k=k, rotate=not want_rot)
         fband = forced.encode(data).sections[0].params.w_band
         ours = comp.sections[0].params.w_band
         assert (ours < fband) if want_rot else (ours <= fband)
@@ -623,7 +285,7 @@ def test_auto_rotation_follows_content():
 def test_codec_multi_section(monkeypatch):
     k = 8
     data = generate_redundant(5 * k * ILS_LANES + 100, 0.5, seed=10)
-    codec = IlsCodec.fit(data, k=k, interpret=True)
+    codec = IlsCodec.fit(data, k=k)
     monkeypatch.setattr(IlsCodec, "SECTION_BYTES", 2 * k * ILS_LANES)
     comp = codec.encode(data)
     assert len(comp.sections) == 4  # 2+2+1 full tiles, then the tail
@@ -638,7 +300,7 @@ def test_certify_widens_cap_instead_of_clamping_band():
     # Synthetic envelope whose span exceeds half the storage-driven cap:
     # round-1 code silently clamped w_band to w_cap//2 (corrupting the
     # stream with no error); certify_params must widen w_cap instead.
-    from huffman_tpu.ops.ils import certify_params
+    from huffman_jax.ops.ils import certify_params
 
     w_tiles = np.array([64], np.int64)  # storage cap would be 64 rows
     dec_min = np.array([[0]], np.int64)
@@ -652,21 +314,8 @@ def test_certify_widens_cap_instead_of_clamping_band():
     assert p.w_cap >= 2 * p.w_band
 
 
-def test_certify_enc_band_widens_cap():
-    from huffman_tpu.ops.ils import certify_params
-
-    p = certify_params(
-        k=2048, snum=1 << 16, n_tiles=1,
-        w_tiles=np.array([32], np.int64),
-        dec_min=np.array([[0]], np.int64),
-        dec_max=np.array([[4]], np.int64),
-        extra_band_pairs=96,  # emission envelope needs a 96-pair window
-    )
-    assert p.w_cap >= 192
-
-
 def test_certify_raises_vmem_beyond_budget():
-    from huffman_tpu.ops.ils import IlsVmemError, certify_params
+    from huffman_jax.ops.ils import IlsVmemError, certify_params
 
     with pytest.raises(IlsVmemError):
         certify_params(
@@ -678,8 +327,8 @@ def test_certify_raises_vmem_beyond_budget():
 
 
 def test_decode_rejects_invalid_band():
-    from huffman_tpu.ops.ils import IlsSection
-    from huffman_tpu.core.ils_ref import IlsParams
+    from huffman_jax.ops.ils import IlsSection
+    from huffman_jax.core.ils_ref import IlsParams
     from dataclasses import replace
 
     k = 8
@@ -687,13 +336,13 @@ def test_decode_rejects_invalid_band():
     table = _fit(data)
     enc, dec = ils_enc_tabs(table), ils_dec_tabs(table)
     avg = float(table.lengths.astype(np.int64)[data].mean())
-    sec = ils_encode_device(data, table, enc, k=k, avg_bits=avg, interpret=True)
+    sec = ils_encode_device(data, table, enc, k=k, avg_bits=avg)
     bad = IlsSection(
         params=replace(sec.params, w_band=sec.params.w_cap // 2 + 1),
         payload=sec.payload,
     )
     with pytest.raises(ValueError, match="w_band"):
-        ils_decode_device(bad, table, dec, interpret=True)
+        ils_decode_device(bad, table, dec)
 
 
 def test_lane_skewed_adversarial_roundtrip():

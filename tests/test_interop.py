@@ -12,19 +12,19 @@ Covers the three decoder-side capabilities of the reference:
 import numpy as np
 import pytest
 
-from huffman_tpu.core import canonical_code_table, package_merge_lengths, npref
-from huffman_tpu.io.seqfmt import decode_seq, read_seq_header, write_seq
-from huffman_tpu.io.yamamoto import (
+from huffman_jax.core import canonical_code_table, package_merge_lengths, npref
+from huffman_jax.io.seqfmt import decode_seq, read_seq_header, write_seq
+from huffman_jax.io.yamamoto import (
     decode_yamamoto,
     read_yamamoto,
     table_from_length_sequence,
     write_yamamoto,
 )
-from huffman_tpu.models.selfsync import (
+from huffman_jax.models.selfsync import (
     is_canonical,
     selfsync_decode_words,
 )
-from huffman_tpu.utils import generate_redundant
+from huffman_jax.utils import generate_redundant
 
 
 def _fit(data, max_len=16):
@@ -44,22 +44,21 @@ def test_yamamoto_roundtrip_device(r):
     assert np.array_equal(out, data)
 
 
-def test_yamamoto_pallas_path_roundtrip():
-    # ADVICE r4: the TPU-default Pallas planned path (segment merge +
-    # fused ranks/placement) was only exercised by TPU bench runs; off-TPU
-    # it engages in interpret mode when forced.  Size chosen so n_segs is
-    # NOT a multiple of the 8-wide merge.
+@pytest.mark.parametrize("method", ["lut", "canonical", "twolevel"])
+def test_yamamoto_decode_methods(method):
+    # every decode step of the two-pass XLA decode; n_segs is deliberately
+    # not a multiple of 8
     data = generate_redundant(60_000, 0.5, seed=21)
     blob = write_yamamoto(data, _fit(data))
     _, _, gaps, _ = read_yamamoto(blob)
-    assert gaps.shape[0] % 8 != 0  # exercise the ragged merge tail
-    out = decode_yamamoto(blob, method="pallas")
+    assert gaps.shape[0] % 8 != 0
+    out = decode_yamamoto(blob, method=method)
     assert np.array_equal(out, data)
 
 
-def test_yamamoto_pallas_corrupt_count():
+def test_yamamoto_corrupt_count():
     # bump the header's original_size: the device-counted symbols no longer
-    # cover it, and the merged-last-segment excess correction must reject
+    # cover it, and the last-segment excess correction must reject
     data = generate_redundant(20_000, 0.5, seed=22)
     blob = bytearray(write_yamamoto(data, _fit(data)))
     (symbol_count,) = np.frombuffer(blob[:8], np.uint64)
@@ -67,7 +66,7 @@ def test_yamamoto_pallas_corrupt_count():
     orig = int(np.frombuffer(blob[off : off + 4], np.uint32)[0])
     blob[off : off + 4] = np.uint32(orig + 4096).tobytes()
     with pytest.raises(ValueError):
-        decode_yamamoto(bytes(blob), method="pallas")
+        decode_yamamoto(bytes(blob))
 
 
 def test_yamamoto_header_fields():
@@ -150,8 +149,55 @@ def test_selfsync_matches_oracle(r, n):
     data = generate_redundant(n, r, seed=15)
     table = _fit(data)
     words, total_bits = npref.encode_bits(data, table)
-    out = selfsync_decode_words(words, total_bits, table, interpret=True)
+    out = selfsync_decode_words(words, total_bits, table)
     assert np.array_equal(out, data)
+
+
+@pytest.mark.parametrize("r", [0.0, 0.5, 0.9])
+def test_sync_transitions_match_serial_walk(r):
+    # every (subsequence, entry state): codewords starting inside the
+    # subsequence and the exit offset into the next, against a host walk
+    import jax.numpy as jnp
+
+    from huffman_jax.core.canonical import chain_spec
+    from huffman_jax.models.selfsync import SYNC_STATES, sync_transitions
+
+    data = generate_redundant(3_000, r, seed=25)
+    table = _fit(data)
+    words, total_bits = npref.encode_bits(data, table)
+    seg = 1024
+    n_sub = -(-total_bits // seg)
+    padded = np.zeros((n_sub + 1) * seg // 32 + 2, np.uint32)
+    padded[: words.size] = words
+    lim = np.zeros(32, np.uint32)
+    lim[: table.lim_left.size] = table.lim_left
+    exits, counts = sync_transitions(
+        jnp.asarray(padded), jnp.int32(total_bits), jnp.asarray(lim),
+        seg_bits=seg, n_subseq=n_sub, min_len=table.min_len,
+        chain=chain_spec(table),
+    )
+    bits = np.unpackbits(padded.astype(">u4").view(np.uint8))
+    code_of = {
+        (int(table.lengths[s]), int(table.codes[s])): s
+        for s in range(256) if table.lengths[s]
+    }
+
+    def length_at(pos):
+        for ln in range(1, 17):
+            v = int("".join(map(str, bits[pos : pos + ln])), 2)
+            if (ln, v) in code_of:
+                return ln
+        raise AssertionError("no codeword")
+
+    for i in range(n_sub):
+        end = min((i + 1) * seg, total_bits)
+        for e in range(SYNC_STATES):
+            pos, cnt = i * seg + e, 0
+            while pos < end:
+                pos += length_at(pos)
+                cnt += 1
+            assert int(counts[i, e]) == cnt
+            assert int(exits[i, e]) == min(max(pos - (i + 1) * seg, 0), 15)
 
 
 def test_selfsync_compose_scan_exact_beyond_float32():
@@ -162,7 +208,7 @@ def test_selfsync_compose_scan_exact_beyond_float32():
     # exact integer arithmetic.  Simulate a stream whose total symbol count
     # (~40M) is far beyond float32's exact range and whose counts differ by
     # entry state, and check entry states + totals against a serial walk.
-    from huffman_tpu.models.selfsync import _compose_scan
+    from huffman_jax.models.selfsync import _compose_scan
     import jax.numpy as jnp
 
     rng = np.random.default_rng(16)
@@ -188,7 +234,7 @@ def test_selfsync_compose_scan_exact_beyond_float32():
 def test_compose_scan_packed_matches_unpacked():
     # the nibble-packed composition scan must be bit-identical to the
     # (n, 16) form on arbitrary transition functions
-    from huffman_tpu.models.selfsync import _compose_scan, _compose_scan_packed
+    from huffman_jax.models.selfsync import _compose_scan, _compose_scan_packed
     import jax.numpy as jnp
 
     rng = np.random.default_rng(17)
@@ -203,5 +249,5 @@ def test_selfsync_single_symbol_stream():
     data = np.full(30_000, 99, np.uint8)
     table = _fit(data)
     words, total_bits = npref.encode_bits(data, table)
-    out = selfsync_decode_words(words, total_bits, table, interpret=True)
+    out = selfsync_decode_words(words, total_bits, table)
     assert np.array_equal(out, data)

@@ -7,10 +7,10 @@ shared library is absent.
 import numpy as np
 import pytest
 
-from huffman_tpu import native
-from huffman_tpu.core import canonical_code_table, npref
-from huffman_tpu.core.package_merge import package_merge_lengths
-from huffman_tpu.utils import generate_redundant
+from huffman_jax import native
+from huffman_jax.core import canonical_code_table, npref
+from huffman_jax.core.package_merge import package_merge_lengths
+from huffman_jax.utils import generate_redundant
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library not built (make -C native)"

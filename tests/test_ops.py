@@ -5,8 +5,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from huffman_tpu.core import canonical_code_table, package_merge_lengths, npref
-from huffman_tpu.ops import (
+from huffman_jax.core import canonical_code_table, package_merge_lengths, npref
+from huffman_jax.ops import (
     encode_block,
     decode_block,
     count_segments,
@@ -15,7 +15,7 @@ from huffman_tpu.ops import (
     device_dec_table,
     dec_spec,
 )
-from huffman_tpu.utils import generate_redundant, generate_binomial
+from huffman_jax.utils import generate_redundant, generate_binomial
 
 
 def make_table(data, max_len=16):
@@ -58,43 +58,38 @@ def test_encode_matches_oracle(gen, seed, seg_bits):
 
 @pytest.mark.parametrize("gen,seed", [("red0.5", 10), ("red0.9", 11), ("binom", 12)])
 @pytest.mark.parametrize("seg_bits", [128, 1024])
-def test_encode_fast_matches_encode_block(gen, seed, seg_bits):
-    """The Pallas-translation encode must be BIT-IDENTICAL to the XLA
-    encode (words, total_bits, gaps, counts) — it only replaces the
-    gathers and the searchsorted metadata with lane lookups and segment
-    reductions."""
-    from huffman_tpu.ops.encode import encode_block_fast
-    from huffman_tpu.ops.pallas.ils_kernels import ils_enc_tabs
+def test_encode_block_vmapped_matches_single(gen, seed, seg_bits):
+    """The vmapped group encode (GapArrayCodec's device path) must be
+    BIT-IDENTICAL to encoding each block alone (words, total_bits, gaps,
+    counts)."""
+    import jax
 
-    n = 8192 * 3  # multiple of 4096 (whole vreg rows), > one map chunk
+    n = 8192
     if gen == "binom":
-        data = generate_binomial(n, seed=seed)
+        data = generate_binomial(3 * n, seed=seed)
     else:
-        data = generate_redundant(n, float(gen[3:]), seed=seed)
+        data = generate_redundant(3 * n, float(gen[3:]), seed=seed)
     table = make_table(data)
     max_words, n_segs, _ = encode_args(data, table, seg_bits)
     enc = device_enc_table(table)
-    ref = encode_block(
-        jnp.asarray(data), enc, seg_bits=seg_bits, max_words=max_words,
-        n_segs=n_segs,
-    )
-    got = encode_block_fast(
-        jnp.asarray(data), ils_enc_tabs(table), seg_bits=seg_bits,
-        max_words=max_words, n_segs=n_segs, interpret=True,
-    )
-    assert int(got[1]) == int(ref[1])
-    for g, r in zip((got[0], got[2], got[3]), (ref[0], ref[2], ref[3])):
-        np.testing.assert_array_equal(np.asarray(g), np.asarray(r))
+    kw = dict(enc=enc, seg_bits=seg_bits, max_words=max_words, n_segs=n_segs)
+    blocks = data.reshape(3, n)
+    got = jax.vmap(lambda d: encode_block(d, **kw))(jnp.asarray(blocks))
+    for j in range(3):
+        ref = encode_block(jnp.asarray(blocks[j]), **kw)
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(np.asarray(g)[j], np.asarray(r))
 
 
-@pytest.mark.parametrize("seg_bits", [128, 1024])
+@pytest.mark.parametrize("method", ["lut", "canonical", "twolevel"])
 @pytest.mark.parametrize("gen,seed", [("red0.5", 20), ("binom", 21)])
-def test_count_segments_pallas_matches_xla(gen, seed, seg_bits):
-    """The Pallas counting kernel (gap-only pass 1) must reproduce the XLA
-    `count_segments` scan exactly — it replaces it on TPU, where the scan's
-    per-step `words[pos>>5]` gather costs ~30 ns/element."""
-    from huffman_tpu.ops.pallas.decode_kernel import count_segments_pallas
+def test_count_segments_matches_npref(gen, seed, method):
+    """The gap-only counting pass (pass 1 of the reference-format decode)
+    must reproduce the encoder's per-segment counts at the reference's
+    128-bit segments with every decode step."""
+    from huffman_jax.ops import count_segments
 
+    seg_bits = 128
     if gen == "binom":
         data = generate_binomial(40_000, seed=seed)
     else:
@@ -102,23 +97,18 @@ def test_count_segments_pallas_matches_xla(gen, seed, seg_bits):
     table = make_table(data)
     words_np, total_bits = npref.encode_bits(data, table)
     gaps_np, counts_ref, _ = npref.segment_metadata(data, table, seg_bits)
-    dec = device_dec_table(table, two_level=False)
     spec = dec_spec(table)
-    s = len(gaps_np)
-    starts = np.arange(s, dtype=np.int64) * seg_bits + gaps_np
-    nxt = np.concatenate([starts[1:], [total_bits]])
-    budgets = (np.minimum(nxt, total_bits) - starts).astype(np.int32)
-    got = count_segments_pallas(
+    got = count_segments(
         jnp.asarray(words_np),
         jnp.asarray(np.asarray(gaps_np, np.int32)),
-        jnp.asarray(budgets),
-        dec,
+        jnp.int32(total_bits),
+        device_dec_table(table, two_level=(method == "twolevel")),
         spec=spec,
         seg_bits=seg_bits,
-        n_segs=s,
-        interpret=True,
+        max_count=seg_bits // spec.min_len + 1,
+        method=method,
     )
-    np.testing.assert_array_equal(np.asarray(got)[:s], counts_ref)
+    np.testing.assert_array_equal(np.asarray(got), counts_ref)
 
 
 @pytest.mark.parametrize("method", ["lut", "canonical", "twolevel"])

@@ -6,16 +6,16 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from huffman_tpu.core import canonical_code_table, package_merge_lengths, npref
-from huffman_tpu.ops import device_enc_table, device_dec_table, dec_spec
-from huffman_tpu.parallel import (
+from huffman_jax.core import canonical_code_table, package_merge_lengths, npref
+from huffman_jax.ops import device_enc_table, device_dec_table, dec_spec
+from huffman_jax.parallel import (
     data_mesh,
     sharded_histogram,
     make_sharded_encode,
     make_sharded_decode,
     make_sharded_roundtrip,
 )
-from huffman_tpu.utils import generate_redundant
+from huffman_jax.utils import generate_redundant
 
 
 def cdiv(a, b):

@@ -2,28 +2,38 @@
 logic testable with xla_force_host_platform_device_count)."""
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 
-from huffman_tpu.core import canonical_code_table, package_merge_lengths, npref
-from huffman_tpu.core.ils_ref import ILS_LANES
-from huffman_tpu.models import IlsCodec
-from huffman_tpu.ops.ils import _as_tiles_i32
-from huffman_tpu.ops.pallas.ils_kernels import ils_dec_tabs, ils_enc_tabs
-from huffman_tpu.parallel import (
+from huffman_jax.core import canonical_code_table, package_merge_lengths, npref
+from huffman_jax.core.canonical import chain_spec
+from huffman_jax.core.ils_ref import ILS_LANES, ils_schedule_numer
+from huffman_jax.models import IlsCodec
+from huffman_jax.ops.ils import as_u32_rows
+from huffman_jax.ops.ils_xla import ils_dec_tabs, ils_enc_tabs
+from huffman_jax.parallel import (
     data_mesh,
     make_ils_sharded_decode,
     make_ils_sharded_roundtrip,
     shard_ils_payload,
 )
-from huffman_tpu.utils import generate_redundant
+from huffman_jax.utils import generate_redundant
 
 
 def _fit(data):
     return canonical_code_table(
         package_merge_lengths(npref.histogram(data), 16), 16
     )
+
+
+def _avg_bits(data, table):
+    return float(
+        (npref.histogram(data) * table.lengths.astype(np.int64)).sum()
+    ) / max(data.size, 1)
+
+
+def _decoded_bytes(out):
+    return np.asarray(out).reshape(-1).view(np.uint8)
 
 
 @pytest.mark.parametrize("n_devices", [2, 8])
@@ -36,15 +46,16 @@ def test_ils_sharded_roundtrip(n_devices):
     enc, dec = ils_enc_tabs(table), ils_dec_tabs(table)
     step = make_ils_sharded_roundtrip(
         mesh, k=k, max_len=max(table.max_len_present, 1),
-        tiles_per_device=tpd, interpret=True,
+        min_len=table.min_len, chain=chain_spec(table),
+        tiles_per_device=tpd,
     )
     data_dev = jnp.asarray(
-        _as_tiles_i32(data, k).reshape(n_devices, tpd * (k // 4), 8, 128)
+        as_u32_rows(data).reshape(n_devices, tpd * (k // 4), ILS_LANES)
     )
-    out, ok = step(data_dev, enc, dec)
+    snum = jnp.int32(ils_schedule_numer(_avg_bits(data, table)))
+    out, ok = step(data_dev, snum, enc, dec)
     assert int(ok) == 1
-    got = np.asarray(out).reshape(-1, 8, 128).view(np.uint32).reshape(-1)
-    assert np.array_equal(got.view(np.uint8), data)
+    assert np.array_equal(_decoded_bytes(out), data)
 
 
 def test_ils_sharded_decode_matches_codec():
@@ -52,50 +63,42 @@ def test_ils_sharded_decode_matches_codec():
     mesh = data_mesh(n_devices)
     n = n_devices * tpd * k * ILS_LANES
     data = generate_redundant(n, 0.7, seed=8)
-    codec = IlsCodec.fit(data, k=k, interpret=True)
+    codec = IlsCodec.fit(data, k=k)
     comp = codec.encode(data)
     (sec,) = comp.sections
     p = sec.params
 
     payload_dev, starts_dev = shard_ils_payload(
-        sec.payload, p.row_starts, p.w_cap, n_devices
+        sec.payload, p.row_starts, n_devices
     )
     dec_fn = make_ils_sharded_decode(
-        mesh,
-        k=p.k,
-        w_cap=p.w_cap,
-        w_band=p.w_band,
-        max_len=max(codec.table.max_len_present, 1),
-        tiles_per_device=tpd,
+        mesh, k=p.k, min_len=codec.table.min_len,
+        chain=chain_spec(codec.table),
         rot=p.rot,  # follow the container's per-section rotation decision
-        interpret=True,
     )
-    params = jnp.asarray(np.array([p.snum, 0], np.int32))
-    tpd_ = p.n_tiles // n_devices
-    boffs_dev = jnp.asarray(p.boffs.reshape(n_devices, tpd_, -1))
     out = dec_fn(
-        jnp.asarray(payload_dev), jnp.asarray(starts_dev), params, boffs_dev,
-        codec.dec,
+        jnp.asarray(payload_dev), jnp.asarray(starts_dev), codec.dec
     )
-    got = np.asarray(out).reshape(-1, 8, 128).view(np.uint32).reshape(-1)
-    assert np.array_equal(got.view(np.uint8), data)
+    assert np.array_equal(_decoded_bytes(out), data)
 
 
 def test_shard_payload_rejects_indivisible():
     with pytest.raises(ValueError):
         shard_ils_payload(
-            np.zeros((4, ILS_LANES), np.uint32), np.array([0, 2, 4]), 8, 4
+            np.zeros((4, ILS_LANES), np.uint32), np.array([0, 2, 4]), 4
         )
 
 
 @pytest.mark.parametrize("rot", [False, True])
 def test_ils_sharded_certified_pipeline(rot):
-    """The PRODUCTION configuration end-to-end over the mesh (VERDICT r3
-    item 3): fused certify+pack per device, global host certification,
-    per-device compaction, CERTIFIED-band sharded decode, bit-exact.
-    Heterogeneous content (zeros next to random) forces real per-window
-    band anchors rather than the trivial all-zero schedule."""
-    from huffman_tpu.parallel import ils_sharded_certified_encode
+    """The production configuration end-to-end over the mesh: pack +
+    certification per device, global host certification, per-device row
+    gather, sharded decode, bit-exact — and the same certified container
+    the single-device encoder writes.  Heterogeneous content (zeros next to
+    random) forces real per-window band anchors rather than the trivial
+    all-zero schedule."""
+    from huffman_jax.ops.ils import ils_encode_device
+    from huffman_jax.parallel import ils_sharded_certified_encode
 
     n_devices, k, tpd = 4, 64, 2
     mesh = data_mesh(n_devices)
@@ -108,47 +111,34 @@ def test_ils_sharded_certified_pipeline(rot):
     ])
     table = _fit(data)
     enc, dec = ils_enc_tabs(table), ils_dec_tabs(table)
-    avg_bits = float(
-        (npref.histogram(data) * table.lengths.astype(np.int64)).sum()
-    ) / max(data.size, 1)
+    avg_bits = _avg_bits(data, table)
 
     data_dev = jnp.asarray(
-        _as_tiles_i32(data, k).reshape(n_devices, tpd * (k // 4), 8, 128)
+        as_u32_rows(data).reshape(n_devices, tpd * (k // 4), ILS_LANES)
     )
     sec = ils_sharded_certified_encode(
         mesh, data_dev, enc, k=k, max_len=max(table.max_len_present, 1),
-        avg_bits=avg_bits, tiles_per_device=tpd, rot=rot, interpret=True,
+        avg_bits=avg_bits, tiles_per_device=tpd, rot=rot,
     )
     p = sec.params
-    assert p.w_band <= p.w_cap // 2  # genuinely banded, not full-band
-
-    from huffman_tpu.core.canonical import chain_spec
-    from huffman_tpu.core.ils_ref import ils_n_win
+    assert p.w_band <= p.w_cap // 2
+    one = ils_encode_device(data, table, enc, k=k, avg_bits=avg_bits, rot=rot)
+    assert np.array_equal(p.boffs, one.params.boffs)
+    assert (p.w_band, p.w_cap) == (one.params.w_band, one.params.w_cap)
 
     dec_fn = make_ils_sharded_decode(
-        mesh, k=k, w_cap=p.w_cap, w_band=p.w_band,
-        max_len=max(table.max_len_present, 1),
-        min_len=max(table.min_len, 1), tiles_per_device=tpd,
-        rot=rot, chain=chain_spec(table), interpret=True,
+        mesh, k=k, min_len=table.min_len, chain=chain_spec(table), rot=rot,
     )
-    params_j = jnp.asarray(np.array([p.snum, 0], np.int32))
-    boffs_dev = jnp.asarray(
-        p.boffs.reshape(n_devices, tpd, ils_n_win(k))
-    )
-    out = dec_fn(sec.payload_dev, sec.starts_dev, params_j, boffs_dev, dec)
-    got = np.asarray(out).reshape(-1, 8, 128).view(np.uint32).reshape(-1)
-    assert np.array_equal(got.view(np.uint8), data)
+    out = dec_fn(sec.payload_dev, sec.starts_dev, dec)
+    assert np.array_equal(_decoded_bytes(out), data)
 
 
 def test_streamed_sections_decode_on_mesh(tmp_path):
-    """Section-streamed container + multi-device decode compose (VERDICT r5
-    item 5's mesh-functional half): a file streamed to disk in bounded
-    sections, then each full section decoded over the 8-device mesh with
-    bounded host memory — the big-stream orchestration a 16 GB multi-host
-    run would use, proven at test scale."""
-    from huffman_tpu.core.canonical import chain_spec
-    from huffman_tpu.core.ils_ref import ils_n_win
-    from huffman_tpu.io.container import IlsStreamReader
+    """Section-streamed container + multi-device decode compose: a file
+    streamed to disk in bounded sections, then each full section decoded
+    over the 8-device mesh with bounded host memory."""
+    from huffman_jax.io.container import IlsStreamReader
+    from huffman_jax.ops.ils import ils_decode_device
 
     n_devices, k = 8, 8
     mesh = data_mesh(n_devices)
@@ -159,7 +149,7 @@ def test_streamed_sections_decode_on_mesh(tmp_path):
     src = tmp_path / "src.bin"
     data.tofile(src)
 
-    codec = IlsCodec.fit_file(str(src), k=k, interpret=True)
+    codec = IlsCodec.fit_file(str(src), k=k)
     cpath = tmp_path / "out.ils"
     codec.encode_file(str(src), str(cpath), section_bytes=section_bytes)
 
@@ -174,33 +164,17 @@ def test_streamed_sections_decode_on_mesh(tmp_path):
             p = sec.params
             if p.n_tiles % n_devices == 0 and p.n_tiles >= n_devices:
                 payload_dev, starts_dev = shard_ils_payload(
-                    sec.payload, p.row_starts, p.w_cap, n_devices
+                    sec.payload, p.row_starts, n_devices
                 )
                 dec_fn = make_ils_sharded_decode(
-                    mesh, k=p.k, w_cap=p.w_cap, w_band=p.w_band,
-                    max_len=max(reader.table.max_len_present, 1),
-                    min_len=max(reader.table.min_len, 1),
-                    tiles_per_device=p.n_tiles // n_devices, rot=p.rot,
-                    chain=chain_spec(reader.table), interpret=True,
+                    mesh, k=p.k, min_len=reader.table.min_len,
+                    chain=chain_spec(reader.table), rot=p.rot,
                 )
-                got = dec_fn(
-                    jnp.asarray(payload_dev), jnp.asarray(starts_dev),
-                    jnp.asarray(np.array([p.snum, 0], np.int32)),
-                    jnp.asarray(p.boffs.reshape(n_devices, -1, ils_n_win(p.k))),
-                    dec,
-                )
-                piece = (
-                    np.asarray(got).reshape(-1, 8, 128).view(np.uint32)
-                    .reshape(-1).view(np.uint8)
-                )
+                piece = _decoded_bytes(dec_fn(
+                    jnp.asarray(payload_dev), jnp.asarray(starts_dev), dec
+                ))
             else:  # tail section: single-device decode
-                from huffman_tpu.ops.ils import ils_decode_device
-
-                piece = np.asarray(
-                    ils_decode_device(
-                        sec, reader.table, dec, interpret=True
-                    )
-                )
+                piece = ils_decode_device(sec, reader.table, dec)
             out = np.concatenate([out, piece])
         reader.close()
     assert np.array_equal(out[:n], data)

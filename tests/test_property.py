@@ -9,13 +9,13 @@ against the same invariant: decode(encode(x)) == x, bit for bit.
 import numpy as np
 import pytest
 
-from huffman_tpu.core import canonical_code_table, package_merge_lengths, npref
-from huffman_tpu.core.ils_ref import ILS_LANES
-from huffman_tpu.io import read_ils_container, write_ils_container
-from huffman_tpu.io.seqfmt import decode_seq, write_seq
-from huffman_tpu.io.yamamoto import decode_yamamoto, write_yamamoto
-from huffman_tpu.models import GapArrayCodec, IlsCodec
-from huffman_tpu.utils import generate_binomial, generate_redundant
+from huffman_jax.core import canonical_code_table, package_merge_lengths, npref
+from huffman_jax.core.ils_ref import ILS_LANES
+from huffman_jax.io import read_ils_container, write_ils_container
+from huffman_jax.io.seqfmt import decode_seq, write_seq
+from huffman_jax.io.yamamoto import decode_yamamoto, write_yamamoto
+from huffman_jax.models import GapArrayCodec, IlsCodec
+from huffman_jax.utils import generate_binomial, generate_redundant
 
 
 def _cases():
@@ -42,7 +42,7 @@ CASES = _cases()
 
 @pytest.mark.parametrize("name,data", CASES, ids=[c[0] for c in CASES])
 def test_ils_roundtrip_property(name, data):
-    codec = IlsCodec.fit(data, k=8, interpret=True)
+    codec = IlsCodec.fit(data, k=8)
     blob = write_ils_container(codec.encode(data))
     out = codec.decode(read_ils_container(blob))
     assert np.array_equal(out, data)
@@ -66,6 +66,6 @@ def test_reference_formats_property(name, data):
 @pytest.mark.parametrize("max_len", [9, 12, 16])
 def test_ils_respects_max_len(max_len):
     data = generate_binomial(30000, seed=7)
-    codec = IlsCodec.fit(data, max_len=max_len, k=8, interpret=True)
+    codec = IlsCodec.fit(data, max_len=max_len, k=8)
     assert int(codec.table.lengths.max()) <= max_len
     assert codec.roundtrip_check(data)

@@ -16,10 +16,10 @@ reference's own PASS/FAIL main (`sequential.cpp:236-277`):
 import numpy as np
 import pytest
 
-from huffman_tpu.core import canonical_code_table, npref, package_merge_lengths
-from huffman_tpu.io import refbin
-from huffman_tpu.io.seqfmt import decode_seq, read_seq_header, write_seq
-from huffman_tpu.utils import generate_redundant
+from huffman_jax.core import canonical_code_table, npref, package_merge_lengths
+from huffman_jax.io import refbin
+from huffman_jax.io.seqfmt import decode_seq, read_seq_header, write_seq
+from huffman_jax.utils import generate_redundant
 
 pytestmark = pytest.mark.skipif(
     not refbin.ref_available(),
@@ -53,7 +53,7 @@ def test_interop_small(r):
 def test_interop_100mb():
     """BASELINE.json config 1: >= 100 MB generate.cpp-semantics data,
     round-trip vs the compiled sequential reference, both directions."""
-    from huffman_tpu import native
+    from huffman_jax import native
 
     if not native.available():
         pytest.skip("native module not built (host walk too slow at 100 MB)")

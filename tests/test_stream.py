@@ -10,14 +10,14 @@ import io
 import numpy as np
 import pytest
 
-from huffman_tpu.io.container import (
+from huffman_jax.io.container import (
     IlsStreamReader,
     IlsStreamWriter,
     read_ils_container,
     write_ils_container,
 )
-from huffman_tpu.models import IlsCodec
-from huffman_tpu.utils import generate_redundant
+from huffman_jax.models import IlsCodec
+from huffman_jax.utils import generate_redundant
 
 
 def test_stream_writer_matches_whole_buffer(tmp_path):

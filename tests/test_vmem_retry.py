@@ -1,17 +1,16 @@
-"""VMEM-budget retry: a file whose longest stream blows the tile estimate
+"""Row-budget retry: a file whose longest stream blows the tile estimate
 must re-encode at a smaller k instead of failing."""
 
 import numpy as np
 
-import huffman_tpu.ops.ils as ils_ops
-from huffman_tpu.core.ils_ref import ILS_LANES
-from huffman_tpu.models import IlsCodec
+import huffman_jax.ops.ils as ils_ops
+from huffman_jax.core.ils_ref import ILS_LANES
+from huffman_jax.models import IlsCodec
 
 
 def test_vmem_retry_on_pathological_stream(monkeypatch):
     # Shrink the budget so the retry triggers at test-sized k (the real
-    # budget would need k=8192 tiles, which interpret mode executes too
-    # slowly for CI).
+    # budget would need k=8192 tiles, too slow for the CPU test run).
     monkeypatch.setattr(ils_ops, "VMEM_ROW_BUDGET", 8)
     monkeypatch.setattr(ils_ops, "MIN_K", 8)
     k = 32
@@ -25,7 +24,7 @@ def test_vmem_retry_on_pathological_stream(monkeypatch):
     u32_idx = np.arange(5, n // 4, ILS_LANES)
     byte_idx = (u32_idx[:, None] * 4 + np.arange(4)[None]).reshape(-1)
     data[byte_idx] = rare[np.arange(byte_idx.size) % 255]
-    codec = IlsCodec.fit(data, k=k, interpret=True)
+    codec = IlsCodec.fit(data, k=k)
     comp = codec.encode(data)  # must retry with smaller k, not crash
     assert np.array_equal(codec.decode(comp), data)
     assert all(s.params.k < k for s in comp.sections)

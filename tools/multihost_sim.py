@@ -1,7 +1,7 @@
 """Two-process multi-host simulation of the sharded ILS codec.
 
 Validates BASELINE config 5's logic (cross-host data-parallel decode with a
-replicated table and ordered gather) without TPU pod hardware: two OS
+replicated table and ordered gather) without a multi-host cluster: two OS
 processes, each owning 4 virtual CPU devices, join one `jax.distributed`
 cluster; the global 8-device mesh shards tiles across both processes and
 the final equality check is a cross-host `pmin`.
@@ -35,11 +35,13 @@ def worker(pid: int) -> None:
     import numpy as np
     import jax.numpy as jnp
 
-    from huffman_tpu.core import canonical_code_table, package_merge_lengths, npref
-    from huffman_tpu.ops.ils import _as_tiles_i32
-    from huffman_tpu.ops.pallas.ils_kernels import ils_dec_tabs, ils_enc_tabs
-    from huffman_tpu.parallel import data_mesh, make_ils_sharded_roundtrip
-    from huffman_tpu.utils import generate_redundant
+    from huffman_jax.core import canonical_code_table, package_merge_lengths, npref
+    from huffman_jax.core.canonical import chain_spec
+    from huffman_jax.core.ils_ref import ils_schedule_numer
+    from huffman_jax.ops.ils import as_u32_rows
+    from huffman_jax.ops.ils_xla import ils_dec_tabs, ils_enc_tabs
+    from huffman_jax.parallel import data_mesh, make_ils_sharded_roundtrip
+    from huffman_jax.utils import generate_redundant
 
     n_devices = jax.device_count()
     assert n_devices == N_PROC * DEV_PER_PROC, n_devices
@@ -56,14 +58,15 @@ def worker(pid: int) -> None:
         mesh,
         k=k,
         max_len=max(table.max_len_present, 1),
+        min_len=table.min_len,
+        chain=chain_spec(table),
         tiles_per_device=tpd,
-        interpret=True,
     )
     # build the globally-sharded input from per-process local shards
-    global_shape = (n_devices, tpd * (k // 4), 8, 128)
-    full = _as_tiles_i32(data, k).reshape(global_shape)
+    global_shape = (n_devices, tpd * (k // 4), 1024)
+    full = as_u32_rows(data).reshape(global_shape)
     sharding = jax.sharding.NamedSharding(
-        mesh, jax.sharding.PartitionSpec("data", None, None, None)
+        mesh, jax.sharding.PartitionSpec("data", None, None)
     )
     mesh_order = list(mesh.devices.flat)
     arrays = [
@@ -74,13 +77,15 @@ def worker(pid: int) -> None:
     data_dev = jax.make_array_from_single_device_arrays(
         global_shape, sharding, arrays
     )
-    out, ok = step(data_dev, ils_enc_tabs(table), ils_dec_tabs(table))
+    avg = float((freqs * table.lengths.astype(np.int64)).sum() / data.size)
+    out, ok = step(data_dev, jnp.int32(ils_schedule_numer(avg)),
+                   ils_enc_tabs(table), ils_dec_tabs(table))
     ok = int(ok)  # replicated scalar, addressable everywhere
     # verify this process's local output shards against the original
     dev_pos = {d: i for i, d in enumerate(mesh_order)}
     for shard in out.addressable_shards:
         i = dev_pos[shard.device]
-        got = np.asarray(shard.data).reshape(-1, 8, 128)
+        got = np.asarray(shard.data).reshape(-1, 1024)
         want = full[i]
         assert np.array_equal(got, want), f"shard {i} mismatch"
     assert ok == 1, "cross-host pmin verification failed"
